@@ -4,13 +4,10 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+import jax  # noqa: E402
+
+from mitsuba3_experiments_tpu.utils.cache import enable_compile_cache  # noqa: E402
 
 if os.environ.get("EX_CPU", "0") == "1":
     jax.config.update("jax_platforms", "cpu")
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+enable_compile_cache()

@@ -1,16 +1,16 @@
-"""mitsuba3_experiments_tpu — a TPU-native differentiable wavefront path tracer.
+"""mitsuba3_experiments_tpu — a differentiable wavefront path tracer in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference repo
+A ground-up JAX/XLA re-design of the capabilities of the reference repo
 ``DoeringChristian/mitsuba3-experiments`` (which layers a research integrator
 zoo on top of the Mitsuba 3 / Dr.Jit CUDA stack).  Here:
 
 * Dr.Jit's lazily-traced megakernels  -> ``jax.jit``-compiled wavefront programs
   (a ``lax.while_loop``/``scan`` over bounce index with per-lane active masks).
 * OptiX/Embree ray tracing            -> flat LBVH arrays traversed by a
-  vectorized stack walker (pure XLA) and a Pallas TPU kernel.
+  vectorized stack walker (pure XLA).
 * DRJIT_STRUCT records                -> registered-dataclass pytrees.
 * PCG32 / TEA samplers                -> counter-based uint32 hash RNG.
-* drjit.nn coopvec MLP + HashGrid     -> bf16 MXU matmuls + instant-NGP hashing.
+* drjit.nn coopvec MLP + HashGrid     -> bf16 matmuls + instant-NGP hashing.
 * CUDA device parallelism             -> ``jax.sharding.Mesh`` + ``shard_map``
   over the ray/wavefront axis, ``psum`` film + gradient reduction.
 

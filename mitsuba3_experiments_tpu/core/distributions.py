@@ -1,6 +1,6 @@
 """Discrete distributions: cumsum CDF + searchsorted sampling.
 
-TPU-native analog of mi.DiscreteDistribution (shape-area emitter CDF at
+JAX analog of mi.DiscreteDistribution (shape-area emitter CDF at
 /root/reference/nerad.py:289-295) and mi.DiscreteDistribution2D (image-target
 sampling at normflow.py:191-215).  Build is a jnp.cumsum; sampling is a
 vectorized binary search (jnp.searchsorted), both XLA-friendly.
@@ -103,9 +103,9 @@ class DiscreteDistribution2D:
         x = jnp.clip(
             _row_searchsorted(row, tx), 0, w - 1
         ).astype(jnp.int32)
-        flat_cdf = self.col_cdf.reshape(-1)   # flat (N,)-index gathers only:
-        col_lo = jnp.where(                   # take_along_axis is a TPU
-            x > 0,                            # compile-time bomb (BENCH.md)
+        flat_cdf = self.col_cdf.reshape(-1)   # flat (N,)-index gathers,
+        col_lo = jnp.where(                   # not take_along_axis
+            x > 0,
             jnp.take(flat_cdf, y * w + jnp.maximum(x - 1, 0)),
             0.0,
         )

@@ -1,10 +1,10 @@
 """Vector math, frames and numeric helpers.
 
-TPU-native replacement for the Dr.Jit array layer's vector types
+JAX replacement for the Dr.Jit array layer's vector types
 (``mi.Vector3f``, ``mi.Frame3f``, ``dr.dot`` / ``dr.cross`` / ``dr.normalize``)
 used throughout the reference (e.g. /root/reference/path-mis.py:24-155).
 Vectors are plain ``jnp`` arrays of shape ``(..., 3)`` — structure-of-arrays
-over the wavefront axis, which XLA lays out well for the VPU.
+over the wavefront axis, which XLA lays out well for vector units.
 """
 from __future__ import annotations
 
@@ -104,7 +104,7 @@ def max_component(rgb):
 def coordinate_system(n):
     """Build an orthonormal basis (s, t) around unit normal n.
 
-    Branchless Duff et al. 2017 construction — the TPU-friendly analog of
+    Branchless Duff et al. 2017 construction — the branch-free analog of
     mi.Frame3f's constructor; no data-dependent control flow.
     Returns (s, t) with s x t = n.
     """
@@ -187,20 +187,24 @@ def refract(wi, cos_theta_t, eta_ti):
 
 # --- 4x4 homogeneous transforms (mi.Transform4f) ---------------------------
 
+# The 3x3 products are written as elementwise multiply-adds, not einsum:
+# XLA may run an f32 dot in TF32 on the GPU (~3 significant digits), and
+# camera/instance transforms need full f32.
+
+
 def transform_point(m, p):
     """Apply 4x4 matrix (broadcastable (...,4,4)) to points (...,3)."""
-    r = jnp.einsum("...ij,...j->...i", m[..., :3, :3], p) + m[..., :3, 3]
-    return r
+    return transform_vector(m, p) + m[..., :3, 3]
 
 
 def transform_vector(m, v):
-    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], v)
+    return jnp.sum(m[..., :3, :3] * v[..., None, :], axis=-1)
 
 
 def transform_normal(m, n):
     """Normals transform by the inverse-transpose of the upper 3x3."""
     inv = jnp.linalg.inv(m[..., :3, :3])
-    return jnp.einsum("...ji,...j->...i", inv, n)
+    return jnp.sum(inv * n[..., :, None], axis=-2)
 
 
 def look_at(origin, target, up):

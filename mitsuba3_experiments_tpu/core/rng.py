@@ -1,4 +1,4 @@
-"""Counter-based RNG: the TPU-native replacement for Mitsuba's stateful
+"""Counter-based RNG: the JAX replacement for Mitsuba's stateful
 PCG32 sampler + TEA wavefront seeding (/root/reference/pssmlt.py:73,84-93,
 metropolis.py:39).
 
@@ -12,7 +12,7 @@ any sharding (lane index is global).
 Two generators:
   * `tea32` — the classic TEA 4-round mix (same family as mi.sample_tea_32).
   * `pcg_hash` — one-round PCG output permutation for cheap decorrelation.
-Both are pure uint32 jnp ops: VPU-only, no jax.random key plumbing in the
+Both are pure uint32 jnp ops: elementwise only, no jax.random key plumbing in the
 hot loop.  `jax.random` remains available at the API edges (seeding).
 """
 from __future__ import annotations

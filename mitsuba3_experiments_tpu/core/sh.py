@@ -2,7 +2,7 @@
 direction encoding of the neural-radiosity field at /root/reference/nerad.py:102).
 
 Hard-coded real SH bands 0..3 (16 coefficients) as polynomial expressions of
-the unit direction — branch-free, VPU-friendly.  Convention matches the
+the unit direction — branch-free, vector-friendly.  Convention matches the
 standard real SH with Condon-Shortley-free normalization (same as drjit's
 sh_eval / "Efficient Spherical Harmonic Evaluation", Sloan 2013).
 """

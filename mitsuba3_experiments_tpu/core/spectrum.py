@@ -53,10 +53,10 @@ def luminance(rgb):
 #
 # The reference's only spectral use is patch.py running a diffuse scene under
 # the `cuda_ad_spectral` variant (Mitsuba supplies the machinery).  This is
-# the TPU-native equivalent of that machinery: wavelength sampling, CIE 1931
+# the JAX equivalent of that machinery: wavelength sampling, CIE 1931
 # observer fits, RGB->spectrum upsampling, and XYZ->sRGB conversion.  All
 # per-lane quantities are (N, K) arrays over K hero-rotated wavelengths —
-# VPU-friendly, no dynamic shapes.
+# vector-friendly, no dynamic shapes.
 # ---------------------------------------------------------------------------
 
 LAMBDA_MIN = 360.0
@@ -190,7 +190,8 @@ EQUAL_ENERGY_WHITE_SRGB = _np.asarray(_equal_energy_white_srgb(),
 def xyz_to_srgb(xyz, white_balance: bool = True):
     """XYZ -> linear sRGB; with equal-energy white balance (the integrator's
     unit-test illuminant is E, not D65) so a flat spectrum maps to gray."""
-    rgb = xyz @ XYZ_TO_SRGB.T
+    rgb = jnp.matmul(xyz, XYZ_TO_SRGB.T,
+                     precision=jax.lax.Precision.HIGHEST)
     if white_balance:
         rgb = rgb / EQUAL_ENERGY_WHITE_SRGB
     return rgb

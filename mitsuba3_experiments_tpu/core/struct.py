@@ -1,4 +1,4 @@
-"""Pytree struct utilities — the DRJIT_STRUCT protocol, the TPU way.
+"""Pytree struct utilities — the DRJIT_STRUCT protocol, the JAX way.
 
 The reference decorates plain classes with ``@drjitstruct``
 (/root/reference/drjitstruct.py:4-12) so Dr.Jit can gather/scatter/zero whole

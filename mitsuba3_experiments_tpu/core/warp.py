@@ -1,6 +1,6 @@
 """Warp library: mappings from the unit square to common domains + densities.
 
-TPU-native port of the Mitsuba warp module exercised by the reference
+JAX port of the Mitsuba warp module exercised by the reference
 (mi.warp.square_to_uniform_sphere at /root/reference/pssmlt.py:251,
 square_to_uniform_hemisphere at restirgi.py:443-444, square_to_std_normal at
 metropolis.py:67, square_to_uniform_disk_concentric, cosine hemisphere inside

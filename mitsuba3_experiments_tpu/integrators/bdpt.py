@@ -1,6 +1,6 @@
 """Bidirectional path tracing: camera + light subpaths with vertex connection.
 
-TPU-native re-design of /root/reference/bdpt02.py: the (depth, lane) AoS
+JAX re-design of /root/reference/bdpt02.py: the (depth, lane) AoS
 vertex buffers (`Path[Vertex]`, bdpt02.py:39-71) fall out naturally as
 `lax.scan` outputs of shape (max_depth+1, N, ...).
 
@@ -206,7 +206,7 @@ class BDPTIntegrator:
         # NOTE the reference (bdpt02.py:238) keeps lanes whose visibility ray
         # *does* hit — it re-intersects to land exactly on s; we mirror that.
         # The acceptance tolerance is RELATIVE to the connection distance
-        # (ADVICE r1: the reference's absolute 1e-2 silently breaks on
+        # (the reference's absolute 1e-2 silently breaks on
         # large/small scene scales)
         si = ray_intersect(scene, shadow, conn_active)
         hit_s = si.valid & (
@@ -486,7 +486,7 @@ class BDPTIntegrator:
             dn = d * m.safe_rcp(dist)[:, None]
             o = p_a + ng_a * (m.sign_not_zero(m.dot(ng_a, dn))
                               * m.RAY_EPS)[:, None]
-            # relative end clearance (scene-scale safe; ADVICE r1)
+            # relative end clearance (scene-scale safe)
             shadow = Ray(o=o, d=dn, maxt=dist * (1.0 - 1e-3))
             return ~ray_test(scene, shadow, act), dn, dist
 

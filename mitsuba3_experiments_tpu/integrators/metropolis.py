@@ -1,7 +1,7 @@
 """Standalone Metropolis-Hastings sampler over a wavefront of independent
 chains, validated against analytic 1-D targets via KL divergence.
 
-TPU-native port of /root/reference/metropolis.py:28-147: the lazily-grown
+JAX port of /root/reference/metropolis.py:28-147: the lazily-grown
 proposal list becomes a fixed (N, D) dimension array (D static), the gaussian
 + large-step mixture kernel and the accept/reject select are identical; state
 is an explicit pytree advanced by a pure function (jit/donate friendly).

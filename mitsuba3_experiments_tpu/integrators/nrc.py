@@ -1,7 +1,7 @@
 """Neural radiance caching: path segments terminated by the area-spread
 heuristic into a cached radiance field.
 
-TPU-native re-design of /root/reference/nrc.py:25-125 — the same NEE+MIS
+JAX re-design of /root/reference/nrc.py:25-125 — the same NEE+MIS
 segment walk with the eqn-3 spread accumulation (`spread +=
 sqrt(|p2-p1|^2 / (pdf |wi2.z|))`, nrc.py:91-93) and termination when
 `spread^2 >= c * a0` (nrc.py:71-72).  The reference never attached the cache

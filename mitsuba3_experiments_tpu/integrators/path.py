@@ -1,6 +1,6 @@
 """Wavefront unidirectional path tracer with NEE + MIS + Russian roulette.
 
-TPU-native re-design of the reference's flagship integrator
+JAX re-design of the reference's flagship integrator
 (/root/reference/path.py:194-302, path-mis.py:24-155): the same
 si-first loop formulation — estimate outgoing radiance at the current
 surface interaction, MIS-combining the emitter sample with the BSDF

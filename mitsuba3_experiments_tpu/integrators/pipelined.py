@@ -1,11 +1,11 @@
 """Two-path software-pipelined persistent wavefront (round-4 scheduler).
 
-Why (BENCH.md round 3): the persistent stepper sits at the chip's
-dependent-gather row floor (~12.3 ns/row), but 43% of gathered rows belong
-to IDLE lanes — lanes whose trace query completed mid-round and must wait
-for the out-of-loop shading transition.  Three scheduling knobs failed to
-recover this (inline refill, strided ownership, shorter rounds): the
-transitions that create the idle are also what amortizes them.
+Why: in the single-path persistent stepper, lanes whose trace query
+completed mid-round idle until the out-of-loop shading transition (43% of
+gathered rows belonged to idle lanes when this was measured on the
+accelerator the system was first built for; on the GPU the share is not
+measured yet).  Shorter rounds cut the idle but multiply the transitions
+that amortize it.
 
 The structural fix: each lane holds TWO independent paths (A, B) sharing
 ONE traversal engine.  When the engine finishes path A's trace query, its
@@ -66,13 +66,9 @@ class PipelinedState:
     """Per-lane: S path slots (default 2) + one shared traversal engine.
 
     Path-slot fields are stored SLOT-MAJOR (S, N) / (S, N, 3): a (N, S)
-    array has a 2-wide minor dimension — catastrophic TPU tiling (the
-    vector layout pads minors toward (8, 128); the round-4 census measured
-    the lane-major stepper at 1.44 ms/iter vs the single-path 0.82) — and
-    the round-5 parts probe showed the per-round transposes + minor-2
-    relayouts in the BOUNDARY block (finish/retire/transition/refill) were
-    a first-order cost too.  Slot-major everywhere kills every transpose;
-    lane sharding under shard_map uses PipelinedState.pspec() (slot fields
+    array has a 2-wide minor dimension, which tiled layouts pad badly, and
+    slot-major everywhere removes every per-round transpose.  Lane
+    sharding under shard_map uses PipelinedState.pspec() (slot fields
     shard axis 1, engine fields axis 0).
 
     `Closure-class` fields are written only at round transitions, so the
@@ -442,13 +438,10 @@ def _retire_dense(st: PipelinedState, rayG, idx0):
     ownership (ray idx = idx0 + g*S*N + p*N + i — see _refill_strided),
     a retiring slot's destination is a deterministic function of (g, p,
     lane), so the deferred-radiance write is a dense `where` over the
-    (G, N) generation plane instead of a scatter.  The round-5 scatter
-    probe measured scatter-SET at a flat ~52 ns/row (no duplicate or
-    pad discount — issue-bound per row): the two per-slot 65k-row
-    scatters cost 6.8 ms EVERY round regardless of how few slots
-    actually retire, while this dense form streams G*N rows (~0.2 ms at
-    the flagship G=29).  rayG is (G, S, N, 3); reshape(-1, 3) is ray
-    order."""
+    (G, N) generation plane instead of a scatter: the two per-slot
+    scatters cost a full row each EVERY round regardless of how few slots
+    actually retire, while this dense form streams G*N rows.  rayG is
+    (G, S, N, 3); reshape(-1, 3) is ray order."""
     G, S, n = rayG.shape[0], rayG.shape[1], rayG.shape[2]
     gi = jnp.arange(G, dtype=jnp.uint32)[:, None]
     for p in range(S):
@@ -669,14 +662,13 @@ def render_pipelined(scene: Scene, seed: int = 0, spp: int = 16,
     (see _stepper).
 
     `retire`: "dense" uses strided ray ownership + the gen-indexed dense
-    retire (round-5, replaces the two ~52 ns/row per-slot scatters);
-    "scatter" the legacy prefix-sum refill + scatter retire; "auto"
-    picks dense for DEEP specs (max_depth >= 16) when the generation
-    count G = ceil(rays / (S*N)) fits `gen_cap`.  Chip A/B (BENCH.md
-    round 5): at d65 dense/steps=32 is +9.4% over scatter/32 and +2.6%
-    over the old scatter/48 optimum; at d8 dense loses ~2.6% — strided
-    ownership forfeits the global-cursor load balancing, which at
-    shallow specs outweighs the removed scatter."""
+    retire (replaces the two per-slot scatters); "scatter" the prefix-sum
+    refill + scatter retire; "auto" picks dense for DEEP specs
+    (max_depth >= 16) when the generation count G = ceil(rays / (S*N))
+    fits `gen_cap`.  The split (dense wins deep, loses shallow, where
+    strided ownership forfeits the global cursor's load balancing) was
+    measured on the accelerator this system was first built for; on the
+    GPU it is a hypothesis (ROADMAP queue 1, item 4)."""
     w, h = scene.camera.resolution
     n_total = w * h * spp
     n_lanes = min(n_lanes, max(n_total // n_slots, 1))
@@ -732,9 +724,9 @@ def _flush_record_pipelined(st: PipelinedState, occm, r_prim, r_u, r_v,
     the loop), which lets replay_grads_sorted skip its entire forward
     bucketed pass (the film it would recompute is bit-identical: same
     rays, same RNG dims, same shading core).  Folding L into the SAME
-    packed scatter matters: row scatters are latency-bound per OP
-    (BENCH.md round 3 — a separate (N,3) radiance scatter per slot per
-    round measured +4.7 s on the d65 record).  Clears the slot to
+    packed scatter matters: a row scatter's cost is per operation as much
+    as per byte, so a separate (N,3) radiance scatter per slot per round
+    would add one more.  Clears the slot to
     PH_DEAD for refill."""
     D = r_prim.shape[2]
     n_pad = glob.shape[0] - 1
@@ -788,10 +780,8 @@ def _flush_record_dense(st: PipelinedState, occm, r_prim, r_u, r_v,
     """Gen-indexed DENSE record flush (round-5): the strided-ownership
     analog of _flush_record_pipelined.  globG is (G, S, N, D+1, 4); a
     retiring slot's rows land at its generation plane via a dense `where`
-    instead of the per-slot packed scatter (the round-5 scatter probe:
-    scatter cost is per-row AND grows with row width — the d8 recorder
-    paid ~13 ms/round for 2x65k scatter rows of 36 floats, vs ~0.5 GB of
-    streaming here).  reshape(G*S*N, D+1, 4) is ray order."""
+    instead of the per-slot packed scatter (scatter cost is per row and
+    grows with row width).  reshape(G*S*N, D+1, 4) is ray order."""
     from .replay import _prim_encode
     G = globG.shape[0]
     D = r_prim.shape[2]
@@ -922,12 +912,11 @@ def record_full_pipelined(scene: Scene, seed, n_rays: int, *, spp: int,
         jnp.zeros((3,), jnp.float32),
     ])
     G = (n_rays + n_slots * n_lanes - 1) // (n_slots * n_lanes)
-    # flush="auto" keeps the scatter: the chip A/B (BENCH.md round 5,
-    # record_flush_ab) measured dense 270.9k vs scatter 280.8k rays/s at
-    # the d8 flagship — the strided ownership's forfeited load balancing
-    # costs more than the flush scatter saves, and at d65 the dense
-    # write would stream ~4 GB/round.  "dense" stays as an explicit,
-    # bit-equal option.
+    # flush="auto" keeps the scatter: the strided ownership's forfeited
+    # load balancing cost more than the flush scatter saved at d8 on the
+    # accelerator this was first tuned on, and at d65 the dense write
+    # would stream ~4 GB/round (computed).  Hypothesis on the GPU (ROADMAP
+    # queue 1, item 4).  "dense" stays as an explicit, bit-equal option.
     dense = flush == "dense"
     if dense:
         glob = jnp.tile(miss_row, (G, n_slots, n_lanes,

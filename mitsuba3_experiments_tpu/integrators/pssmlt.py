@@ -1,9 +1,9 @@
 """Primary-sample-space Metropolis light transport (PSSMLT).
 
-TPU-native re-design of /root/reference/pssmlt.py + pssmltpath.py +
+JAX re-design of /root/reference/pssmlt.py + pssmltpath.py +
 pssmltsimple.py.  Round 2 replaces the reference's structure-faithful but
 *biased* scheme (direction-lerp mutations, current-state-only cumulative
-splat — see VERDICT.md round 1) with the textbook Kelemen et al. 2002
+splat) with the textbook Kelemen et al. 2002
 formulation, which is what the reference was approximating:
 
   * The chain state is the **primary sample vector** — the screen position

@@ -1,7 +1,7 @@
 """Adjoint particle tracer: light paths splatted onto the film.
 
 The reference compares its PSSMLT against Mitsuba's built-in `ptracer`
-(/root/reference/testpssmlt.py:17-44).  This is the TPU-native equivalent:
+(/root/reference/testpssmlt.py:17-44).  This is the JAX equivalent:
 emitter-ray walks (render/emitter.py::sample_emitter_ray) whose vertices are
 connected to the camera with a visibility ray and splatted through
 sensor.sample_direction — the adjoint of the camera path tracer.  Estimator:

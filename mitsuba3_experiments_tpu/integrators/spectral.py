@@ -3,18 +3,18 @@
 The reference's one spectral experiment (/root/reference/patch.py:10) runs a
 diffuse scene under Mitsuba's spectral variant; Mitsuba supplies wavelength
 sampling, RGB upsampling, and the CIE film.  This module is that variant
-TPU-native (machinery in core/spectrum.py):
+in JAX (machinery in core/spectrum.py):
 
   * each lane carries K=4 hero-rotated wavelengths (Wilkie et al. 2014) —
-    throughput/radiance are (N, K) rows, pure VPU work, static shapes;
+    throughput/radiance are (N, K) rows, pure elementwise work, static shapes;
   * RGB scene data (albedo, emitter radiance) upsamples to smooth spectra
     via a partition-of-unity band basis, exact for gray (furnace-safe);
   * the film accumulates CIE XYZ (Monte-Carlo CMF weights) and develops to
     linear sRGB.
 
 BSDF-sampling-only transport (the reference's simple.py structure,
-/root/reference/simple.py:27-74).  Round 5 broadened the lobe coverage
-(VERDICT r4 #7): every BSDF's RGB sample weight — diffuse albedo (textured
+/root/reference/simple.py:27-74).  Round 5 broadened the lobe coverage:
+every BSDF's RGB sample weight — diffuse albedo (textured
 included), GGX-conductor Fresnel tint, plastic, dielectric — upsamples to
 a smooth spectrum through the same partition-of-unity band basis.
 Upsampling is linear in RGB, so for diffuse this is exactly the old

@@ -1,6 +1,6 @@
 """Stochastic progressive photon mapping.
 
-TPU-native re-design of /root/reference/sppm.py: the camera pass collects
+JAX re-design of /root/reference/sppm.py: the camera pass collects
 visible points through a specular-only walk (sample_visible_point
 sppm.py:199-234), a hash grid buckets them (sppm.py:98-178 — here the
 sort-based ops/hashgrid.py instead of the scatter-reduce collision loops),

@@ -1,7 +1,7 @@
 """Batched Möller–Trumbore ray/triangle intersection.
 
 Replaces the OptiX/Embree triangle test (scene.ray_intersect at
-/root/reference/path.py:238).  Pure VPU arithmetic over (..., K) triangle
+/root/reference/path.py:238).  Pure elementwise arithmetic over (..., K) triangle
 packets — no divergence, masks carry miss lanes.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Multiresolution hash-grid feature encoding (instant-NGP).
 
-TPU-native replacement for Dr.Jit's HashGridEncoding from the experimental
+JAX replacement for Dr.Jit's HashGridEncoding from the experimental
 `coopvec-hashgrid` branch (/root/reference/nerad.py:7-11,66,98): per-level
 hashed corner lookup + trilinear interpolation.  The backward pass — the
 fp16 scatter-reduce the reference needed a custom drjit-core branch for

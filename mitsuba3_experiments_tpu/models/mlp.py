@@ -1,11 +1,11 @@
-"""Plain-pytree MLP in bf16 — the TPU analog of drjit.nn's cooperative-vector
+"""Plain-pytree MLP in bf16 — the JAX analog of drjit.nn's cooperative-vector
 networks (nn.Linear/Sequential/LeakyReLU..., /root/reference/nerad.py:66-89,
 normflow.py:274-352).
 
 Coopvec on CUDA keeps per-thread activations in registers and hits tensor
-cores via warp cooperation; on TPU the same thing is simply a batched matmul
-on the MXU: activations (N, C) @ weights (C, C') in bfloat16 with fp32
-accumulation.  Master parameters stay fp32 (the fp16-weights/fp32-Adam AMP
+cores via warp cooperation; in JAX the same thing is a batched matmul that
+XLA hands to the matrix units: activations (N, C) @ weights (C, C') in
+bfloat16 with fp32 accumulation.  Master parameters stay fp32 (the fp16-weights/fp32-Adam AMP
 split of nerad.py:336-347 is unnecessary in bf16 — no GradScaler needed).
 """
 from __future__ import annotations
@@ -43,7 +43,7 @@ def init_mlp(key, sizes: Sequence[int], scale: float | None = None):
 
 def apply_mlp(params, x, hidden_act="leaky_relu", out_act="none",
               compute_dtype=jnp.bfloat16):
-    """Forward pass: bf16 matmuls with fp32 accumulation on the MXU."""
+    """Forward pass: bf16 matmuls with fp32 accumulation."""
     act = ACTS[hidden_act]
     h = x.astype(compute_dtype)
     for i, layer in enumerate(params):

@@ -2,9 +2,9 @@
 one-bounce residual (LHS = field, RHS = NEE+MIS estimate + field at the next
 bounce).
 
-TPU-native re-design of /root/reference/nerad.py:
+JAX re-design of /root/reference/nerad.py:
   Field (:54-106)          -> hashgrid_encode + sh_eval(order 3) + 4x64 MLP
-                              (bf16 MXU matmuls; fp32 master params — the
+                              (bf16 matmuls; fp32 master params — the
                               fp16/fp32 AMP + GradScaler of :336-347 is
                               unnecessary in bf16)
   sample_rhs (:174-233)    -> M=32 fan-out via trepeat + block_sum reduction
@@ -48,11 +48,6 @@ class FieldConfig:
     sh_order: int = 3
     width: int = 64
     depth: int = 4
-    # fused=True evaluates the MLP as a single Pallas kernel (activations
-    # resident in VMEM across layers — the coopvec analog); backward goes
-    # through the numerically-identical XLA path (models/pallas_mlp.py)
-    fused: bool = False
-    fused_tile: int = 512
 
 
 def init_field(key, cfg: FieldConfig):
@@ -71,17 +66,7 @@ def field_eval(params, cfg: FieldConfig, p_norm, wi_world):
     feat_p = hashgrid_encode(params["grid"], p_norm, cfg.grid)
     feat_d = sh_eval(wi_world, cfg.sh_order)
     h = jnp.concatenate([feat_p, feat_d.astype(feat_p.dtype)], axis=-1)
-    if cfg.fused:
-        from .pallas_mlp import default_interpret, fused_apply_mlp
-
-        out = fused_apply_mlp(
-            params["mlp"], h.astype(jnp.float32), "leaky_relu",
-            cfg.fused_tile, default_interpret(),
-        )
-    else:
-        out = apply_mlp(
-            params["mlp"], h, hidden_act="leaky_relu", out_act="none"
-        )
+    out = apply_mlp(params["mlp"], h, hidden_act="leaky_relu", out_act="none")
     return jnp.exp(out.astype(jnp.float32)) - 1.0  # expm1: signed-safe
 
 

@@ -1,12 +1,12 @@
 """RealNVP normalizing flows: affine coupling + permutation layers, NLL
 training against analytic (double spiral) or image-based 2-D targets.
 
-TPU-native re-design of /root/reference/normflow.py:
+JAX re-design of /root/reference/normflow.py:
   CouplingLayer.forward/inverse (:452-564) -> `coupling_forward/_inverse`
   PermutationLayer                          -> fixed index permutation
   GELU module (:274-302)                    -> jax.nn.gelu
-  TwoAlign (:331-352)                       -> unnecessary (XLA pads for the
-                                               MXU automatically)
+  TwoAlign (:331-352)                       -> unnecessary (XLA pads matmul
+                                               operands itself)
   square_to_std_normal base dist (:73-87)   -> core.warp.square_to_std_normal
   SpiralDistr (:122-150)                    -> `spiral_sample`
   ImageDistr (:162-218)                     -> DiscreteDistribution2D sampling
@@ -82,10 +82,10 @@ class FlowConfig:
     # CouplingLayer, normflow.py:452-564); "rqs" = monotone rational-
     # quadratic splines (Durkan et al. 2019, Neural Spline Flows) — the
     # measured fix for the axis-aligned-affine limitation that leaves the
-    # learned double-spiral arms soft (BENCH.md round-2 queue-9 finding:
-    # capacity is NOT the limiter, the coupling family is).
+    # learned double-spiral arms soft (capacity is NOT the limiter, the
+    # coupling family is).
     coupling: str = "affine"
-    # rqs resolution (measured on the double spiral, BENCH.md): K=32 bins
+    # rqs resolution (measured on the double spiral): K=32 bins
     # over [-3, 3] reaches NLL -0.78 vs -0.60 for K=8/[-4,4] and -0.60 for
     # affine at 8x the iterations; the unit-square targets occupy ~1 bin at
     # K=8 so knot resolution, not capacity, had been the limiter.

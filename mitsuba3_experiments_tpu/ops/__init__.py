@@ -1,4 +1,4 @@
-from .prefix_sum import prefix_sum, prefix_sum_pallas  # noqa: F401
+from .prefix_sum import prefix_sum  # noqa: F401
 from .reductions import (  # noqa: F401
     block_sum,
     scatter_reduce,

@@ -1,5 +1,5 @@
 """Array concatenation helpers mirroring the reference's gather/scatter
-implementations (/root/reference/util.py:7-45).  On TPU both are just
+implementations (/root/reference/util.py:7-45).  In JAX both are just
 ``jnp.concatenate``; the two entry points are kept for API parity and the
 scatter variant demonstrates the index-arithmetic formulation used when
 building into a preallocated buffer.

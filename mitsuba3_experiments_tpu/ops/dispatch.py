@@ -3,11 +3,11 @@
 The reference leans on Dr.Jit vcalls: `dr.dispatch` over BSDFPtr/ShapePtr
 lanes (/root/reference/patch.py:14-44, custom-prop.py:14-21,
 specular_from_bsdf.py:25-50) and `dr.reorder_threads` for coherence
-(nerad.py:225).  TPUs have no function pointers in-kernel; the two idiomatic
+(nerad.py:225).  XLA programs have no function pointers; the two idiomatic
 lowerings are provided here:
 
   * `dispatch_masked` — evaluate every callee on all lanes, select by mask.
-    Best when callees are cheap VPU math (the BSDF library uses this form).
+    Best when callees are cheap elementwise math (the BSDF library uses this form).
   * `dispatch_sorted` — sort lanes by type id, run each callee once on the
     full (sorted) batch with a mask, scatter results back.  The
     reorder-threads analog; wins when callees are expensive and types are

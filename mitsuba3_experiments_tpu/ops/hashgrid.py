@@ -1,11 +1,11 @@
 """Point-bucketing hash grid.
 
-TPU-native re-design of /root/reference/hashgrid.py:16-90 and the SPPM grid
+JAX re-design of /root/reference/hashgrid.py:16-90 and the SPPM grid
 (sppm.py:98-178).  The reference builds cell lists with scatter-reduce
 collision-resolution loops (hashgrid.py:52-63) plus a prefix-sum over bin
-counts; on TPU one stable sort by cell id replaces the whole contention
+counts; here one stable sort by cell id replaces the whole contention
 machinery (SURVEY.md section 5 "race detection"): deterministic, no atomics,
-O(N log N) on the VPU.
+O(N log N).
 
 Layout: `order` lists point indices sorted by cell; `cell_start[c]/cell_end[c]`
 delimit each cell's span.  Queries walk a fixed-size window of the span.

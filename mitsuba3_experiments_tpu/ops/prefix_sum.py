@@ -1,16 +1,11 @@
 """Parallel prefix sum.
 
 The reference hand-rolls a Hillis-Steele scan with gather/scatter because
-Dr.Jit lacked one (/root/reference/prefix_sum.py:9-36).  On TPU the idiomatic
-primitive is ``jnp.cumsum`` (XLA lowers it to a log-depth scan already), so
-that is the default; a Pallas blocked scan kernel is provided for the large-N
-case and as the building block the SPPM/hash-grid offsets use.
+Dr.Jit lacked one (/root/reference/prefix_sum.py:9-36).  In JAX the
+idiomatic primitive is ``jnp.cumsum``, which XLA lowers to a log-depth scan.
 """
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 
 
@@ -20,63 +15,3 @@ def prefix_sum(x, exclusive: bool = False):
     if exclusive:
         s = jnp.concatenate([jnp.zeros_like(s[:1]), s[:-1]], axis=0)
     return s
-
-
-@functools.partial(jax.jit, static_argnames=("block", "interpret"))
-def prefix_sum_pallas(x, block: int = 2048, interpret: bool = False):
-    """Blocked inclusive scan as a Pallas TPU kernel.
-
-    Grid walks blocks sequentially (TPU grid order is sequential per core),
-    carrying the running total in SMEM scratch — the classic
-    scan-then-propagate pattern without a second pass.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    assert block % 128 == 0, "block must be a multiple of the 128-lane tile"
-    n = x.shape[0]
-    pad = (-n) % block
-    xp = jnp.pad(x, ((0, pad),))
-    nblocks = xp.shape[0] // block
-    rows = block // 128
-    # 2-D (sublane, lane) layout from the start: Mosaic's vector ISA has no
-    # cumsum, no dynamic_slice, and cannot concatenate at non-tile offsets
-    # (all three measured as hardware lowering failures — BENCH.md), so the
-    # scan is expressed as what the hardware IS good at: two triangular
-    # matmuls on the MXU.
-    x2 = xp.reshape(nblocks * rows, 128)
-
-    def kernel(x_ref, o_ref, carry_ref):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            carry_ref[0] = jnp.zeros((), x_ref.dtype)
-
-        blk = x_ref[...]                                   # (rows, 128)
-        dt = blk.dtype
-        hi = jax.lax.Precision.HIGHEST
-        # intra-row inclusive scan: out[r, k] = sum_{j<=k} blk[r, j]
-        j = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 0)
-        k = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 1)
-        tri_inc = (j <= k).astype(dt)
-        row_scan = jax.lax.dot(blk, tri_inc, precision=hi)
-        # exclusive scan of row totals: offs[r] = sum_{s<r} total[s]
-        row_tot = jax.lax.slice(row_scan, (0, 127), (rows, 128))  # (rows,1)
-        r1 = jax.lax.broadcasted_iota(jnp.int32, (rows, rows), 0)
-        r2 = jax.lax.broadcasted_iota(jnp.int32, (rows, rows), 1)
-        tri_exc = (r2 < r1).astype(dt)
-        offs = jax.lax.dot(tri_exc, row_tot, precision=hi)        # (rows,1)
-        o_ref[...] = row_scan + offs + carry_ref[0]
-        carry_ref[0] = carry_ref[0] + jnp.sum(blk)
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(nblocks,),
-        in_specs=[pl.BlockSpec((rows, 128), lambda i: (i, 0))],
-        out_specs=pl.BlockSpec((rows, 128), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct(x2.shape, x.dtype),
-        scratch_shapes=[pltpu.SMEM((1,), x.dtype)],
-        interpret=interpret,
-    )(x2)
-    return out.reshape(-1)[:n]

@@ -3,9 +3,12 @@
 The reference implements ``scatter_reduce_with(func, target, value, index)``
 by iterated collision detection + ``dr.compress`` worklists
 (/root/reference/reductions.py:12-54) because atomic scatter supports only
-Add/Min/Max.  On TPU, XLA's scatter is *serialized and deterministic*, so:
+Add/Min/Max.  In JAX every scatter is one XLA op with defined semantics for
+duplicate indices, so:
 
-  * add/min/max/mul  -> native ``.at[idx].op(value)`` (already race-free)
+  * add/min/max/mul  -> native ``.at[idx].op(value)`` (race-free; on the GPU
+    the float add/mul lower to atomics whose order, and so whose last bits,
+    change from run to run — compare results with a tolerance)
   * arbitrary combiner -> sort-by-index + per-segment associative scan
     (segment boundaries from the sorted keys) — one sort, no contention loop.
 """
@@ -16,7 +19,7 @@ import jax.numpy as jnp
 
 
 def scatter_reduce(op: str, target, value, index):
-    """op in {'add','min','max','mul'}: deterministic XLA scatter."""
+    """op in {'add','min','max','mul'}: one XLA scatter."""
     at = target.at[index]
     return getattr(at, op)(value)
 
@@ -26,7 +29,7 @@ def scatter_reduce_with(combine, target, value, index):
 
     Sorts (index, value) pairs, reduces equal-index runs with an inclusive
     associative scan, and scatters the last element of each run into target.
-    Shapes are static; cost is one sort + one scan (TPU-friendly), replacing
+    Shapes are static; cost is one sort + one scan, replacing
     the reference's data-dependent collision loop.
     """
     n = index.shape[0]
@@ -58,7 +61,7 @@ def scatter_reduce_with(combine, target, value, index):
 
 
 def segment_sum(value, segment_ids, num_segments: int):
-    """jax.ops.segment_sum wrapper (deterministic on TPU)."""
+    """jax.ops.segment_sum wrapper (a scatter-add: atomics on the GPU)."""
     return jax.ops.segment_sum(value, segment_ids, num_segments=num_segments)
 
 

@@ -2,8 +2,8 @@
 
 Replaces Mitsuba's C++ BSDF plugins + Dr.Jit vcall dispatch
 (bsdf.eval_pdf_sample at /root/reference/path.py:254, plugin zoo listed in
-SURVEY.md section 2.2).  Polymorphism the TPU way: every lane evaluates every
-lobe family once (pure VPU arithmetic, no gathers besides the material-table
+SURVEY.md section 2.2).  Polymorphism the XLA way: every lane evaluates every
+lobe family once (pure elementwise arithmetic, no gathers besides the material-table
 rows) and the per-lane result is selected by the `kind` column.  With ~7 lobe
 families this costs less than the divergence/sort machinery it avoids; a
 sort-by-material segmented path is the later optimization (SURVEY hard part #4).

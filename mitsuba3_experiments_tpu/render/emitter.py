@@ -282,8 +282,7 @@ def pdf_emitter_direction_packed(scene: Scene, si_ref, si_hit, em_pmf,
     """pdf_emitter_direction computed from the NEE-pdf columns folded into
     the face row (_make_si(return_row=True): row[:, 27] = pmf, [28] = area)
     — identical floats to the EmitterTable path, but ZERO extra large-table
-    gathers (face_to_slot is (F,)-sized: ~12.3 ns/row at wavefront width,
-    BENCH.md round 3).  Used by the persistent transition and the replay
+    gathers (face_to_slot is (F,)-sized).  Used by the persistent transition and the replay
     bounce; other integrators keep the table path."""
     em = scene.emitters
     has = (si_hit.prim_idx >= 0) & (si_hit.emitter_id >= 0) & (em_pmf > 0.0)

@@ -31,11 +31,10 @@ def _accum(film, xi, yi, w, value, active):
 
 
 def _accum_taps(film, taps, value, active):
-    """One scatter-add for ALL filter taps: scatters on this TPU are
-    latency-bound and (within the footprint sizes here) near-independent of
-    row count, so K taps x N lanes as ONE (K*N)-row scatter costs ~1 tap's
-    latency instead of K (measured: retire 5.4 -> dominated by 4 tent
-    scatters before this change; see BENCH.md round-2 profile)."""
+    """One scatter-add for ALL filter taps: K taps x N lanes as ONE
+    (K*N)-row scatter instead of K scatters (a scatter's fixed cost per
+    operation is paid once; on the GPU it lowers to atomics, a layer metric
+    of its own in ROADMAP queue 1, item 6)."""
     k = len(taps)
     xi = jnp.concatenate([t[0] for t in taps])
     yi = jnp.concatenate([t[1] for t in taps])

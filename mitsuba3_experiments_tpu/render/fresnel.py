@@ -1,5 +1,5 @@
 """Fresnel terms (dielectric + conductor) — mitsuba's fresnel.h equivalents,
-branch-free for the VPU."""
+branch-free."""
 from __future__ import annotations
 
 import jax.numpy as jnp

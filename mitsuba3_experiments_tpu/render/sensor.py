@@ -7,6 +7,7 @@ reproject.py:9-21).  Mitsuba camera convention: local +Z = viewing direction,
 (handled at scene compile, scene/build.py)."""
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ..core import math as m
@@ -51,7 +52,9 @@ def perspective_projection(camera: Camera, near: float = 0.01,
     )
     scale = jnp.diag(jnp.array([1.0 / tx, 1.0 / ty, 1.0, 1.0], m.Float))
     world_to_cam = jnp.linalg.inv(camera.to_world)
-    return proj @ scale @ world_to_cam
+    hi = jax.lax.Precision.HIGHEST  # no TF32: see core/math.py transforms
+    return jnp.matmul(jnp.matmul(proj, scale, precision=hi), world_to_cam,
+                      precision=hi)
 
 
 def sample_direction(camera: Camera, p_world):
@@ -62,7 +65,7 @@ def sample_direction(camera: Camera, p_world):
     tw = camera.to_world
     R = tw[:3, :3]
     t = tw[:3, 3]
-    p_cam = (p_world - t) @ R  # R^T p  (R orthonormal)
+    p_cam = jnp.sum((p_world - t)[..., :, None] * R, axis=-2)  # R^T p
     z = p_cam[..., 2]
     valid = z > 1e-6
     x = m.safe_div(p_cam[..., 0], z)

@@ -1,6 +1,6 @@
 """Scene compiler: Mitsuba-style nested dicts -> flat device arrays.
 
-TPU-native replacement for mi.load_dict + the C++ scene graph
+JAX-native replacement for mi.load_dict + the C++ scene graph
 (/root/reference/path.py:308-330, restirgi.py:591-620).  A scene dict uses the
 same vocabulary as Mitsuba's (`type` keys: perspective/rectangle/cube/sphere/
 obj/diffuse/conductor/dielectric/twosided/area/ref/...), but compilation
@@ -134,7 +134,7 @@ class _MaterialBuilder:
             # twosided is an *adapter* in Mitsuba: if the nested BSDF resolved
             # to a shared named row (a ref), copy it into a new row so other
             # shapes using the same name keep their one-sided behavior
-            # (ADVICE round 1: in-place mutation flipped every user of the ref).
+            # (in-place mutation flipped every user of the ref).
             if rid in self.named.values():
                 self.rows.append(copy.deepcopy(self.rows[rid]))
                 rid = len(self.rows) - 1
@@ -475,8 +475,7 @@ def load_dict(scene_dict: dict, bvh_layout=None) -> tuple[Scene, dict]:
         env_map=meta.pop("env_map", None),
     )
     # per-face NEE pdf data (pmf, area) rides the face row so hit shading
-    # never needs the (F,)-sized face_to_slot gather (large-table gathers
-    # cost ~12.3 ns/row on this TPU — BENCH.md round 3)
+    # never needs the (F,)-sized face_to_slot gather
     em_pmf_f = np.zeros(F.shape[0], np.float32)
     em_area_f = np.zeros(F.shape[0], np.float32)
     slot_of = np.asarray(emitters.face_to_slot)
@@ -498,7 +497,7 @@ def load_dict(scene_dict: dict, bvh_layout=None) -> tuple[Scene, dict]:
                             em_pmf_f, em_area_f)
         ),
     )
-    bvh = build_bvh(V, F, layout=bvh_layout)
+    bvh = build_bvh(V, F, layout=bvh_layout, info=meta)
     scene = Scene(
         geometry=geometry,
         materials=materials,
@@ -516,8 +515,8 @@ def _pack_face_rows(V, N, UV, F, face_flat, face_mat, face_em,
                     em_pmf=None, em_area=None):
     """One (F, 32) f32 row per face with everything _make_si needs.
 
-    See Geometry.face_packed for the layout rationale (gather-count is the
-    hit-shading cost on this TPU).  e1/e2 are precomputed with the same
+    See Geometry.face_packed for the layout rationale (one gather per hit
+    instead of 13).  e1/e2 are precomputed with the same
     float subtraction _make_si previously did at runtime, so interactions
     are bit-identical to the 13-gather form.  Cols 27/28 carry the NEE
     pdf data (face pmf, area) copied from EmitterTable so MIS at emitter

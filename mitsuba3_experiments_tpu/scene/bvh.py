@@ -1,14 +1,13 @@
 """BVH construction: vectorized top-down binned SAH (host side, numpy).
 
-TPU-native replacement for the OptiX/Embree acceleration structures the
+JAX-side replacement for the OptiX/Embree acceleration structures the
 reference relies on (scene.ray_intersect at /root/reference/path.py:238).
 
 The first iteration of this module used an implicit Morton-ordered balanced
 tree (pointer-free).  Measurement on the bedroom-class scene showed rays
 visiting ~25% of all nodes — Morton pairing across overlapping shapes plus
-room-sized wall triangles produce huge node bounds, and gather cost on TPU
-turned out negligible (see scripts/gather_bench.py), so pointer chasing is
-free.  This builder is a classic binned SAH (16 bins, surface-area heuristic
+room-sized wall triangles produce huge node bounds — and pointer chasing
+costs no more gathers than the implicit tree.  This builder is a classic binned SAH (16 bins, surface-area heuristic
 with leaf cost) vectorized *per BFS level*: every node at a level is binned,
 swept and partitioned with bincount/segment reductions — no Python recursion
 over nodes, O(F log F) total.
@@ -30,7 +29,7 @@ def _aabb_area(lo, hi):
 
 def build_bvh(
     vertices: np.ndarray, faces: np.ndarray, leaf_size: int | None = None,
-    layout=None,
+    layout=None, info: dict | None = None,
 ) -> BVH:
     """Build the packed 8-wide BVH (types.BVH).
 
@@ -39,6 +38,8 @@ def build_bvh(
     `layout` (bvh8.BVHLayout) selects width/leaf_cap/collapse/SBVH; None =
     bvh8.DEFAULT_LAYOUT (env-overridable).  leaf_size defaults to (and must
     not exceed) layout.leaf_cap — the packed leaf row layout derives from it.
+    When `info` is a dict, info["bvh_builder"] names the binary builder
+    that made the tree ("native-sbvh", "native-sah" or "numpy-sah").
     """
     import jax.numpy as jnp
 
@@ -50,25 +51,28 @@ def build_bvh(
         leaf_size = lay.leaf_cap
     assert leaf_size <= lay.leaf_cap, (leaf_size, lay.leaf_cap)
 
-    native = None
+    native, builder = None, "native-sbvh"
     if lay.sbvh:
         # spatial-split build (native/sbvh_builder.cpp): straddling
         # triangles are duplicated with clipped boxes, cutting node overlap
-        # -> fewer rows/ray in the gather-bound stepper (flagship chip A/B:
-        # +3.8% rays/s over the object-split build, identical images).
+        # -> fewer rows per ray in the stepper, identical images.
         # Falls back to the object-split builders when the native lib is
         # unavailable.
         native = try_build_sbvh_native(
             vertices, faces, leaf_size, alpha=lay.sbvh_alpha
         )
     if native is None:
+        builder = "native-sah"
         native = try_build_bvh_native(vertices, faces, leaf_size)
     if native is not None:
         lo, hi, left, right, first, count, order, max_leaf = native
     else:
+        builder = "numpy-sah"
         lo, hi, left, right, first, count, order = _build_bvh_numpy(
             vertices, faces, leaf_size
         )
+    if info is not None:
+        info["bvh_builder"] = builder
 
     v = np.asarray(vertices, np.float32)
     f = np.asarray(faces, np.int64)

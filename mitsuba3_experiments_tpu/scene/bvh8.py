@@ -1,8 +1,9 @@
 """8-wide BVH: collapse of the binary SAH tree into packed-row tables.
 
-Motivation (BENCH.md): traversal on this TPU is gather-latency bound
-(~0.1-0.35 ms per gather regardless of size), so the wide layout packs
-everything one traversal step needs into a single row:
+Motivation: the traversal was designed as gather-count bound (measured on
+the accelerator this system was first built for; a hypothesis on the GPU,
+ROADMAP queue 1, item 3), so the wide layout packs everything one traversal
+step needs into a single row:
 
   nodes    (NN8, 64) f32 — [0:8]  child codes (bitcast int32:
                                    >=0 internal node row; -1 empty;
@@ -16,14 +17,14 @@ everything one traversal step needs into a single row:
                            hit).  LEAF_CAP=8 gives the historical
                            [0:72 | 72:80 pad | 80:88] = 88-float row.
 
-One internal step = ONE row gather + pure VPU 8-box slab tests; one leaf
-step = ONE row gather + LEAF_CAP unrolled VPU triangle tests.
+One internal step = ONE row gather + elementwise 8-box slab tests; one leaf
+step = ONE row gather + LEAF_CAP unrolled triangle tests.
 Tree depth ~ log8 -> ~3x fewer lockstep iterations than the binary tree.
 
-Because per-lane row gathers on this TPU are latency-bound and
-width-independent (BENCH.md), LEAF_CAP is the iterations-per-ray knob:
-doubling it halves leaf rows (and shaves tree depth) at the cost of wider
-rows (~free) and more unrolled VPU triangle tests per iteration.
+If row gathers are latency-bound and width-independent, LEAF_CAP is the
+iterations-per-ray knob: doubling it halves leaf rows (and shaves tree
+depth) at the cost of wider rows and more unrolled triangle tests per
+iteration.
 Override with env M3T_LEAF_CAP for A/B runs; layout derives from it.
 """
 from __future__ import annotations
@@ -46,17 +47,17 @@ class BVHLayout:
     aux data (types.BVH.layout), so jitted traversal specializes per layout
     and A/Bs run in one process.
 
-    Field notes (measurements in BENCH.md):
-      width      node fan-out; 8 is the measured optimum (round-2 A/B).
-      leaf_cap   triangles per packed leaf row; 8 optimum (round-2 A/B).
+    Field notes (defaults chosen on the accelerator this system was first
+    built for; hypotheses on the GPU until re-tuned, ROADMAP queue 1,
+    item 4):
+      width      node fan-out; 8.
+      leaf_cap   triangles per packed leaf row; 8.
       collapse   binary->wide expansion order.  "area" (SA-greedy, Ylitie
                  et al. 2017 style) cuts rows/ray 8% but deepens the tree
-                 (stack need 91 vs 64) and measured NET NEGATIVE on chip
-                 (round 3: the 16 extra shift-register columns cost -6.2%);
+                 (stack need 91 vs 64, 16 more shift-register columns);
                  "first" is the default.
       sbvh       spatial-split binary build (native/sbvh_builder.cpp,
-                 Stich et al. 2009): +3.8% rays/s on the flagship chip A/B
-                 at +3.5% duplicated references.  Default ON.
+                 Stich et al. 2009).  Default ON.
       sbvh_alpha child-overlap threshold (fraction of root area) above
                  which a spatial split is attempted.
       stack_depth traversal stack capacity; None = auto (80 for the
@@ -109,8 +110,8 @@ class BVHLayout:
 
     @staticmethod
     def from_env() -> "BVHLayout":
-        """Thin env-override shim (M3T_*) over the defaults — kept so chip
-        A/B scripts can flip layouts without code edits."""
+        """Thin env-override shim (M3T_*) over the defaults — kept so A/B
+        runs can flip layouts without code edits."""
         sd = os.environ.get("M3T_STACK_DEPTH")
         return BVHLayout(
             width=int(os.environ.get("M3T_BVH_WIDTH", "8")),
@@ -123,20 +124,6 @@ class BVHLayout:
 
 
 DEFAULT_LAYOUT = BVHLayout.from_env()
-
-# legacy module-level aliases (scripts + bvh_pallas still read these);
-# library code should take a BVHLayout / read bvh.layout instead
-WIDTH = DEFAULT_LAYOUT.width
-LEAF_CAP = DEFAULT_LAYOUT.leaf_cap
-VERT_FLOATS = DEFAULT_LAYOUT.vert_floats
-FACE_OFF = DEFAULT_LAYOUT.face_off
-LEAF_ROW = DEFAULT_LAYOUT.leaf_row
-NODE_BASE = DEFAULT_LAYOUT.node_base
-NODE_ROW = DEFAULT_LAYOUT.node_row
-COLLAPSE = DEFAULT_LAYOUT.collapse
-SBVH = DEFAULT_LAYOUT.sbvh
-SBVH_ALPHA = DEFAULT_LAYOUT.sbvh_alpha
-STACK_DEPTH = DEFAULT_LAYOUT.stack
 
 
 def collapse_to_wide(lo, hi, left, right, first, count, prim_order,

@@ -3,17 +3,47 @@
 The reference's native tier is the whole Mitsuba/Dr.Jit C++ stack; here the
 host-side native work is scene I/O and BVH building — see native/*.cpp.  The
 Python fallbacks stay authoritative for correctness; the native paths are
-drop-in accelerations, auto-detected at import.
+drop-in accelerations.  `build()` compiles the library from native/*.cpp
+(`make -C native`); run it once with
+
+    python -m mitsuba3_experiments_tpu.scene.native
+
+or let scene.flagship.load_flagship call it.  Without the library, the BVH
+build falls back to the slower numpy object-split builder.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import subprocess
 
 import numpy as np
 
+NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "native")
+LIB_PATH = os.path.join(NATIVE_DIR, "libm3t.so")
+
 _LIB = None
 _TRIED = False
+
+
+def build() -> str:
+    """Compile native/libm3t.so with `make -C native` (a no-op when it is
+    up to date) and load it; returns the library's path.  Raises when the
+    build fails or the library does not load."""
+    global _TRIED
+    with open(os.path.join(NATIVE_DIR, "Makefile")) as lock:
+        # one builder at a time across processes (test workers)
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        subprocess.run(["make", "-s", "-C", NATIVE_DIR], check=True,
+                       stdout=subprocess.DEVNULL)
+    if _LIB is None:
+        _TRIED = False
+    if _find_lib() is None:
+        raise RuntimeError(f"{LIB_PATH} was built but does not load")
+    return LIB_PATH
 
 
 def _find_lib():
@@ -21,83 +51,34 @@ def _find_lib():
     if _TRIED:
         return _LIB
     _TRIED = True
-    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    for cand in (
-        os.path.join(here, "..", "native", "libm3t.so"),
-        os.path.join(here, "native", "libm3t.so"),
-    ):
-        cand = os.path.abspath(cand)
-        if os.path.exists(cand):
-            try:
-                lib = ctypes.CDLL(cand)
-                lib.m3t_load_obj.restype = ctypes.c_int
-                lib.m3t_load_obj.argtypes = [
-                    ctypes.c_char_p,
-                    ctypes.POINTER(ctypes.c_void_p),  # handle out
-                    ctypes.POINTER(ctypes.c_int64),   # n_verts
-                    ctypes.POINTER(ctypes.c_int64),   # n_faces
-                    ctypes.POINTER(ctypes.c_int),     # has_normals
-                    ctypes.POINTER(ctypes.c_int),     # has_uvs
-                ]
-                lib.m3t_copy_mesh.argtypes = [
-                    ctypes.c_void_p,
-                    ctypes.POINTER(ctypes.c_float),
-                    ctypes.POINTER(ctypes.c_float),
-                    ctypes.POINTER(ctypes.c_float),
-                    ctypes.POINTER(ctypes.c_int32),
-                ]
-                lib.m3t_free_mesh.argtypes = [ctypes.c_void_p]
-                try:
-                    lib.m3t_build_sbvh.restype = ctypes.c_int
-                    lib.m3t_build_sbvh.argtypes = [
-                        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
-                        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-                        ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                        ctypes.POINTER(ctypes.c_void_p),
-                        ctypes.POINTER(ctypes.c_int64),
-                        ctypes.POINTER(ctypes.c_int64),
-                    ]
-                    lib.m3t_copy_sbvh.argtypes = [
-                        ctypes.c_void_p,
-                        ctypes.POINTER(ctypes.c_float),
-                        ctypes.POINTER(ctypes.c_float),
-                        ctypes.POINTER(ctypes.c_int32),
-                        ctypes.POINTER(ctypes.c_int32),
-                        ctypes.POINTER(ctypes.c_int32),
-                        ctypes.POINTER(ctypes.c_int32),
-                        ctypes.POINTER(ctypes.c_int32),
-                        ctypes.POINTER(ctypes.c_int32),
-                    ]
-                    lib.m3t_free_sbvh.argtypes = [ctypes.c_void_p]
-                except AttributeError:
-                    pass  # older lib without the spatial-split builder
-                try:
-                    lib.m3t_build_bvh.restype = ctypes.c_int
-                    lib.m3t_build_bvh.argtypes = [
-                        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
-                        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-                        ctypes.c_int,
-                        ctypes.POINTER(ctypes.c_void_p),
-                        ctypes.POINTER(ctypes.c_int64),
-                    ]
-                    lib.m3t_copy_bvh.argtypes = [
-                        ctypes.c_void_p,
-                        ctypes.POINTER(ctypes.c_float),
-                        ctypes.POINTER(ctypes.c_float),
-                        ctypes.POINTER(ctypes.c_int32),
-                        ctypes.POINTER(ctypes.c_int32),
-                        ctypes.POINTER(ctypes.c_int32),
-                        ctypes.POINTER(ctypes.c_int32),
-                        ctypes.POINTER(ctypes.c_int32),
-                        ctypes.POINTER(ctypes.c_int32),
-                    ]
-                    lib.m3t_free_bvh.argtypes = [ctypes.c_void_p]
-                except AttributeError:
-                    pass  # older lib without the builder
-                _LIB = lib
-                break
-            except OSError:
-                pass
+    if not os.path.exists(LIB_PATH):
+        return None
+    try:
+        lib = ctypes.CDLL(LIB_PATH)
+    except OSError:
+        return None
+    P, i64, c_int = ctypes.POINTER, ctypes.c_int64, ctypes.c_int
+    f32p, i32p, vpp = P(ctypes.c_float), P(ctypes.c_int32), P(ctypes.c_void_p)
+    lib.m3t_load_obj.restype = c_int
+    lib.m3t_load_obj.argtypes = [
+        ctypes.c_char_p, vpp,
+        P(i64), P(i64),      # n_verts, n_faces
+        P(c_int), P(c_int),  # has_normals, has_uvs
+    ]
+    lib.m3t_copy_mesh.argtypes = [ctypes.c_void_p, f32p, f32p, f32p, i32p]
+    lib.m3t_free_mesh.argtypes = [ctypes.c_void_p]
+    lib.m3t_build_sbvh.restype = c_int
+    lib.m3t_build_sbvh.argtypes = [
+        f32p, i64, i32p, i64, c_int, ctypes.c_float, ctypes.c_float,
+        vpp, P(i64), P(i64),
+    ]
+    lib.m3t_copy_sbvh.argtypes = [ctypes.c_void_p, f32p, f32p] + [i32p] * 6
+    lib.m3t_free_sbvh.argtypes = [ctypes.c_void_p]
+    lib.m3t_build_bvh.restype = c_int
+    lib.m3t_build_bvh.argtypes = [f32p, i64, i32p, i64, c_int, vpp, P(i64)]
+    lib.m3t_copy_bvh.argtypes = [ctypes.c_void_p, f32p, f32p] + [i32p] * 6
+    lib.m3t_free_bvh.argtypes = [ctypes.c_void_p]
+    _LIB = lib
     return _LIB
 
 
@@ -105,7 +86,7 @@ def try_build_bvh_native(vertices, faces, leaf_size: int):
     """Returns (lo, hi, left, right, first, count, prim_order, max_leaf)
     numpy arrays or None when the native lib is unavailable."""
     lib = _find_lib()
-    if lib is None or not hasattr(lib, "m3t_build_bvh"):
+    if lib is None:
         return None
     v = np.ascontiguousarray(vertices, np.float32)
     f = np.ascontiguousarray(faces, np.int32)
@@ -153,9 +134,9 @@ def try_build_sbvh_native(vertices, faces, leaf_size: int,
     None when unavailable.  prim_order holds REFERENCES (len >= n_faces,
     repeated face ids allowed): a straddling triangle is duplicated into
     both children with clipped boxes, cutting node overlap — fewer rows
-    visited per ray in the gather-bound traversal (BENCH.md round 3)."""
+    visited per ray in the traversal."""
     lib = _find_lib()
-    if lib is None or not hasattr(lib, "m3t_build_sbvh"):
+    if lib is None:
         return None
     v = np.ascontiguousarray(vertices, np.float32)
     f = np.ascontiguousarray(faces, np.int32)
@@ -231,3 +212,7 @@ def try_load_obj_native(path: str):
         uv if has_uv.value else None,
         f,
     )
+
+
+if __name__ == "__main__":
+    print(build())

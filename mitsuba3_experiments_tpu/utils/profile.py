@@ -2,7 +2,7 @@
 
 The reference reads drjit-core's kernel launch history
 (dr.kernel_history, /root/reference/path.py:332-351) and brackets phases
-with NVTX ranges (dr.profile_range, nerad.py:392-396).  The TPU equivalents:
+with NVTX ranges (dr.profile_range, nerad.py:392-396).  The JAX equivalents:
 
   * `kernel_history(fn, *args)`  — compile the jitted fn and report XLA's
     cost analysis (flops, bytes accessed, peak memory) per executable:

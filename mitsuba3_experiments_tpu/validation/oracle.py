@@ -1,6 +1,6 @@
 """Independent CPU reference path tracer for cross-renderer validation.
 
-VERDICT r1 "missing #3": the reference validates against Mitsuba's C++
+The reference validates against Mitsuba's C++
 `path` integrator (/root/reference/path.py:332-359); Mitsuba cannot be
 installed here, so this module supplies the missing *independent
 implementation* cross-check.  Rules of independence:

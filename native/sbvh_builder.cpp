@@ -11,9 +11,8 @@
 //
 // Where the reference leans on Embree/OptiX's internal builders for ray-
 // tracing performance (scene.ray_intersect, /root/reference/path.py:238),
-// this is the TPU build's equivalent quality lever: fewer overlapping
-// nodes -> fewer rows visited per ray -> linear win in the gather-bound
-// persistent stepper (BENCH.md round 3).
+// this is the equivalent quality lever here: fewer overlapping nodes ->
+// fewer rows visited per ray in the persistent stepper.
 //
 // ABI (ctypes, see scene/native.py):
 //   int  m3t_build_sbvh(const float* verts, int64 n_verts,

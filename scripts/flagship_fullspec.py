@@ -2,9 +2,10 @@
 
 The bedroom scene.xml defines the north-star workload (SURVEY.md section 6:
 1280x720, spp 64, max_depth 65, independent sampler, tent filter —
-/root/reference/data/bedroom/scene.xml:2-6).  bench.py's headline rung runs
-depth 8 / spp 4 for round-over-round comparability; this script runs the
-full spec once on the chip, records rays/s, and writes PNG + EXR artifacts.
+/root/reference/data/bedroom/scene.xml:2-6) on the seeded bedroom-class
+scene.  bench.py runs depth 8 and 65 at spp 4; this script runs the full
+spec once on the GPU, prints rays/s with the device it ran on, and writes
+PNG + EXR + JSON to out/.
 
 Usage: python scripts/flagship_fullspec.py [spp] [depth]
 """
@@ -18,8 +19,9 @@ sys.path.insert(0, REPO)
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from mitsuba3_experiments_tpu.utils.cache import enable_compile_cache
+
+enable_compile_cache()
 
 import numpy as np
 
@@ -30,15 +32,16 @@ from mitsuba3_experiments_tpu.utils.image import write_exr, write_png
 spp = int(sys.argv[1]) if len(sys.argv) > 1 else 64
 depth = int(sys.argv[2]) if len(sys.argv) > 2 else 65
 
-print("device:", jax.devices()[0], flush=True)
+dev = jax.devices()[0]
+if dev.platform != "gpu":
+    sys.exit(f"needs a GPU, found {dev.platform}")
+print("device:", dev.device_kind, flush=True)
 scene, _ = load_flagship(res=(1280, 720), spp=spp, tri_budget=2_000_000)
 n_rays = 1280 * 720 * spp
 
-# two-path pipelined scheduler, scatter retire, steps=48: the measured
-# best for the spp-64 workload.  The spp-4 rung's dense/32 optimum does
-# NOT transfer here: at spp 64 the generation count is G=450 and the
-# dense gen-write measured ~2x slower end-to-end (the (G, S, N, 3)
-# axis-1 slice relayouts per round at this G) — BENCH.md round 5.
+# scatter retire, steps=48: the deep spp-64 frame has G=450 generations,
+# where the dense generation-indexed retire keeps a (G, S, N, 3) buffer
+# (hypothesis to re-measure on the GPU: ROADMAP queue 1, item 4)
 kw = dict(spp=spp, max_depth=depth, rr_depth=4, rfilter="tent",
           n_lanes=65536, steps=48, rounds_per_launch=32,
           retire="scatter")
@@ -49,12 +52,13 @@ print(f"spp {spp} depth {depth}: {dt:.1f}s = {n_rays/dt:.0f} rays/s "
       f"(incl. compile), mean {img.mean():.4f}, nan {np.isnan(img).sum()}",
       flush=True)
 
-os.makedirs(os.path.join(REPO, "artifacts"), exist_ok=True)
+out = os.path.join(REPO, "out")
+os.makedirs(out, exist_ok=True)
 tag = f"flagship_spp{spp}_d{depth}"
-write_exr(os.path.join(REPO, "artifacts", tag + ".exr"), img)
-write_png(os.path.join(REPO, "artifacts", tag + ".png"), img)
-with open(os.path.join(REPO, "artifacts", tag + ".json"), "w") as f:
+write_exr(os.path.join(out, tag + ".exr"), img)
+write_png(os.path.join(out, tag + ".png"), img)
+with open(os.path.join(out, tag + ".json"), "w") as f:
     json.dump({"spp": spp, "depth": depth, "seconds": dt,
                "rays_per_s_incl_compile": n_rays / dt,
-               "mean": float(img.mean())}, f)
+               "mean": float(img.mean()), "device": dev.device_kind}, f)
 print("artifacts written:", tag, flush=True)

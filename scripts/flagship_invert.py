@@ -7,7 +7,7 @@ the reference exercises through mi.render's backward
 (/root/reference/path.py:332-359), at full frame scale on one chip.
 
 Usage: python scripts/flagship_invert.py [steps] [depth]
-Writes artifacts/flagship_invert.json + start/final PNGs.
+Writes out/flagship_invert.json + start/final PNGs.
 """
 import json
 import os
@@ -15,13 +15,14 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(REPO, "out")
 sys.path.insert(0, REPO)
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(REPO, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from mitsuba3_experiments_tpu.utils.cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +52,7 @@ def update_log(scene, p):
 
 
 def main():
+    os.makedirs(OUT, exist_ok=True)
     n_steps = int(sys.argv[1]) if len(sys.argv) > 1 else 16
     depth = int(sys.argv[2]) if len(sys.argv) > 2 else 65
     w, h, spp = 1280, 720, 4
@@ -88,7 +90,7 @@ def main():
         img = filmlib.develop(film)
         loss = float(jnp.mean((img - target) ** 2))
         if it == 0:
-            write_png(os.path.join(REPO, "artifacts/flagship_invert_start.png"),
+            write_png(os.path.join(OUT, "flagship_invert_start.png"),
                       np.asarray(img))
         g = replay_grads(
             scene_it, params, update_log, target, it + 1, rec, n_rays,
@@ -115,7 +117,7 @@ def main():
         scene_f, seed=0, spp=spp, max_depth=depth, rr_depth=4,
         rfilter="box", n_lanes=65536, steps=48, rounds_per_launch=32,
     ))
-    write_png(os.path.join(REPO, "artifacts/flagship_invert_final.png"),
+    write_png(os.path.join(OUT, "flagship_invert_final.png"),
               final)
     out = {
         "workload": {"res": [w, h], "spp": spp, "depth": depth,
@@ -127,9 +129,9 @@ def main():
         "col_err_first": curve[0]["col_err"],
         "col_err_last": curve[-1]["col_err"],
         "curve": curve, "total_s": time.perf_counter() - t_all,
-        "device": str(jax.devices()[0]),
+        "device": jax.devices()[0].device_kind,
     }
-    with open(os.path.join(REPO, "artifacts/flagship_invert.json"), "w") as f:
+    with open(os.path.join(OUT, "flagship_invert.json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps({k: out[k] for k in
                       ("fwdbwd_s_per_step", "loss_first", "loss_last",

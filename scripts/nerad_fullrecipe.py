@@ -1,8 +1,8 @@
-"""nerad at the FULL reference recipe on the chip (VERDICT r3 #6):
+"""nerad at the FULL reference recipe:
 batch 2^14, 1,000 iterations, M=32 RHS fan-out, Adam 1e-3, validation MSE
 vs a 1,000-spp path reference (/root/reference/nerad.py:258-259,383-403).
-Writes artifacts/nerad_tpu_fullrecipe.json (loss/val curve + train-step ms)
-and artifacts/nerad_fullrecipe_{final,ref}.png.
+Writes out/nerad_fullrecipe.json (loss/val curve + train-step ms, with the
+device) and out/nerad_fullrecipe_{final,ref}.png.
 
 Usage: python scripts/nerad_fullrecipe.py [iters] [batch_pow2] [ref_spp]
 """
@@ -16,9 +16,9 @@ sys.path.insert(0, REPO)
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(REPO, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from mitsuba3_experiments_tpu.utils.cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -87,10 +87,10 @@ def main():
     final = np.asarray(render(
         scene, NeradIntegrator(trainer=trainer, params=params), spp=8,
     ))
-    os.makedirs(os.path.join(REPO, "artifacts"), exist_ok=True)
-    write_png(os.path.join(REPO, "artifacts/nerad_fullrecipe_final.png"),
-              final)
-    write_png(os.path.join(REPO, "artifacts/nerad_fullrecipe_ref.png"), ref)
+    out_dir = os.path.join(REPO, "out")
+    os.makedirs(out_dir, exist_ok=True)
+    write_png(os.path.join(out_dir, "nerad_fullrecipe_final.png"), final)
+    write_png(os.path.join(out_dir, "nerad_fullrecipe_ref.png"), ref)
     out = {
         "recipe": {"iters": iters, "batch": batch, "m_rhs": 32,
                    "lr": 1e-3, "ref_spp": ref_spp,
@@ -99,10 +99,9 @@ def main():
         "train_s_total": t_train,
         "final_val_mse_spp8": float(mse(final, ref)),
         "curve": curve,
-        "device": str(jax.devices()[0]),
+        "device": jax.devices()[0].device_kind,
     }
-    with open(os.path.join(REPO,
-                           "artifacts/nerad_tpu_fullrecipe.json"), "w") as f:
+    with open(os.path.join(out_dir, "nerad_fullrecipe.json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps({"train_step_ms": step_ms,
                       "final_val_mse": out["final_val_mse_spp8"],

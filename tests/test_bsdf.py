@@ -1,6 +1,6 @@
 """BSDF unit tests: sample/eval/pdf mutual consistency, energy conservation,
 sampled-density histograms vs pdf (the chi^2-style strategy SURVEY.md section 4
-prescribes for the TPU build)."""
+prescribes for the new framework)."""
 import dataclasses
 
 import jax.numpy as jnp

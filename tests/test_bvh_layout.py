@@ -93,7 +93,7 @@ def test_persistent_renderer_on_nondefault_layout():
 
 @pytest.mark.slow
 def test_env_shim_still_configures_default_layout():
-    """The thin M3T_* env shim (BVHLayout.from_env) keeps chip A/B scripts
+    """The thin M3T_* env shim (BVHLayout.from_env) keeps A/B runs
     working without code edits."""
     code = (
         "import jax; jax.config.update('jax_platforms', 'cpu');"

@@ -7,16 +7,17 @@ single-process 8-device result.
 The workers are this file's `__main__` mode (fresh interpreters so each
 can own its JAX runtime + Gloo collectives); process 0 writes results to a
 temp dir and the pytest parent — which holds the usual single-process
-8-device CPU mesh from conftest — compares.  This is the DCN-analog init
-path: cross-process collectives ride Gloo here, ICI/DCN on real slices,
+8-device CPU mesh from conftest — compares.  This is the multi-host init
+path: cross-process collectives ride Gloo here and NCCL across GPU hosts,
 with identical program code either way.
 
 Launch recipe (what a real 2-host run does, one line per host):
-  host0: JAX_PLATFORMS=tpu python -c "import jax; \
+  host0: python -c "import jax; \
       jax.distributed.initialize('host0:8476', 2, 0); ..."
-  host1: JAX_PLATFORMS=tpu python -c "import jax; \
+  host1: python -c "import jax; \
       jax.distributed.initialize('host0:8476', 2, 1); ..."
-(on TPU pods, jax.distributed.initialize() autodetects all three args).
+(the coordinator address, process count and id are always passed
+explicitly; nothing here autodetects a cluster).
 """
 import json
 import os

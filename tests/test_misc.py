@@ -113,17 +113,84 @@ def test_nrc_with_cache_recovers_energy():
 
 
 def test_xml_loader_bedroom_skeleton():
-    from mitsuba3_experiments_tpu.scene.xml import load_xml_dict
+    """The generated flagship keeps the reference bedroom's skeleton:
+    72 shapes (70 meshes + 2 rectangle emitters), 64 BSDFs, 1280x720,
+    tent filter, depth 65, the camera at its recorded origin."""
+    from mitsuba3_experiments_tpu.scene.build import _BSDF_TYPES
+    from mitsuba3_experiments_tpu.scene.flagship import bedroom_dict
 
-    d = load_xml_dict("/root/reference/data/bedroom/scene.xml")
+    d = bedroom_dict(tri_budget=20_000)
     assert d["sensor"]["type"] == "perspective"
     assert d["sensor"]["film"]["width"] == 1280
+    assert d["sensor"]["film"]["height"] == 720
     assert d["sensor"]["film"]["rfilter"] == "tent"
     assert d["integrator"]["max_depth"] == 65
-    shapes = [v for v in d.values() if isinstance(v, dict) and v.get("type") in ("obj", "rectangle")]
+    np.testing.assert_allclose(np.asarray(d["sensor"]["to_world"])[:3, 3],
+                               [3.456, 1.212, 3.299], rtol=1e-6)
+    shapes = [v for v in d.values()
+              if isinstance(v, dict) and v.get("type") in ("mesh", "rectangle")]
     assert len(shapes) == 72
+    assert sum(v["type"] == "mesh" for v in shapes) == 70
     emitters = [v for v in d.values() if isinstance(v, dict) and "emitter" in v]
     assert len(emitters) == 2
+    assert all(v["type"] == "rectangle" for v in emitters)
+    bsdfs = [v for v in d.values()
+             if isinstance(v, dict) and v.get("type") in _BSDF_TYPES]
+    assert len(bsdfs) == 64
+    kinds = {v["type"] for v in bsdfs}
+    assert kinds == {"twosided", "diffuse", "roughplastic", "roughconductor",
+                     "conductor", "dielectric", "mask"}
+    textured = [v for v in bsdfs if v["type"] == "twosided" and isinstance(
+        v["bsdf"].get("reflectance"), dict)]
+    assert len(textured) == 4
+
+
+def test_xml_loader_small_scene(tmp_path):
+    """load_xml_dict on a bedroom-style XML: defaults, named + referenced
+    twosided BSDF, tent film, an area-emitting rectangle."""
+    from mitsuba3_experiments_tpu.scene import load_dict
+    from mitsuba3_experiments_tpu.scene.xml import load_xml_dict
+
+    xml = """<scene version="3.0.0">
+      <default name="spp" value="8"/>
+      <integrator type="path"><integer name="max_depth" value="65"/></integrator>
+      <sensor type="perspective">
+        <float name="fov" value="60"/>
+        <transform name="to_world">
+          <lookat origin="3.456, 1.212, 3.299" target="0, 0.9, 0" up="0, 1, 0"/>
+        </transform>
+        <sampler type="independent">
+          <integer name="sample_count" value="$spp"/>
+        </sampler>
+        <film type="hdrfilm">
+          <integer name="width" value="32"/>
+          <integer name="height" value="18"/>
+          <rfilter type="tent"/>
+        </film>
+      </sensor>
+      <bsdf type="twosided" id="wall">
+        <bsdf type="diffuse"><rgb name="reflectance" value="0.7 0.6 0.5"/></bsdf>
+      </bsdf>
+      <shape type="rectangle"><ref id="wall"/></shape>
+      <shape type="rectangle">
+        <transform name="to_world"><translate x="0" y="2" z="0"/></transform>
+        <ref id="wall"/>
+        <emitter type="area"><rgb name="radiance" value="5 5 5"/></emitter>
+      </shape>
+    </scene>"""
+    p = tmp_path / "bedroom_like.xml"
+    p.write_text(xml)
+    d = load_xml_dict(str(p))
+    assert d["integrator"]["max_depth"] == 65
+    assert d["sensor"]["sampler"]["sample_count"] == 8
+    assert d["sensor"]["film"]["rfilter"] == "tent"
+    np.testing.assert_allclose(d["sensor"]["to_world"][:3, 3],
+                               [3.456, 1.212, 3.299], rtol=1e-6)
+    assert d["wall"]["type"] == "twosided"
+    scene, meta = load_dict(d)
+    assert meta["spp"] == 8 and meta["rfilter"] == "tent"
+    assert scene.camera.resolution == (32, 18)
+    np.testing.assert_allclose(np.asarray(scene.emitters.radiance), [[5, 5, 5]])
 
 
 def test_kernel_history_cost_analysis():

@@ -1,11 +1,9 @@
 """Neural-component tests: hash-grid encoding, MLP, nerad training descent,
 normflow NLL descent + invertibility, reparam detJ gradcheck."""
-import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from mitsuba3_experiments_tpu.models import (
     FieldConfig,
@@ -127,7 +125,7 @@ def test_normflow_rqs_coupling():
     """Rational-quadratic-spline couplings (Durkan et al. 2019): exact
     invertibility, analytic log-det == autodiff, near-identity init, and
     faster NLL descent than affine on the double spiral — the measured fix
-    for the soft-arm RealNVP limitation (BENCH.md queue-9)."""
+    for the soft-arm RealNVP limitation."""
     cfg = nf.FlowConfig(coupling="rqs", n_couplings=4, hidden=32)
     params = nf.init_flow(jax.random.PRNGKey(0), cfg)
     z = jax.random.normal(jax.random.PRNGKey(1), (256, 2)) * 2.0
@@ -216,75 +214,3 @@ def test_reparam_training_concentrates_mass():
         np.asarray(z) - np.array([0.7, 0.3]), axis=-1
     )
     assert np.median(d) < 0.8 * np.median(d_uniform), np.median(d)
-
-
-def test_pallas_fused_mlp_matches_xla():
-    from mitsuba3_experiments_tpu.models.pallas_mlp import (
-        fused_mlp_forward,
-        mlp_params_flat,
-    )
-
-    sizes = (16, 64, 64, 3)
-    params = init_mlp(jax.random.PRNGKey(2), list(sizes))
-    x = jax.random.normal(jax.random.PRNGKey(3), (300, 16))
-    ref = apply_mlp(params, x)  # bf16 XLA path
-    try:
-        got = fused_mlp_forward(
-            mlp_params_flat(params), x, sizes, interpret=True
-        )
-    except Exception as e:
-        pytest.skip(f"pallas interpret unavailable: {e}")
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(ref, np.float32), rtol=2e-2, atol=2e-2
-    )
-
-
-def test_fused_apply_mlp_value_and_grad_match_xla():
-    """custom_vjp wrapper: fused forward == XLA forward exactly (same bf16
-    discipline), and grads == jax.grad of the XLA path (VERDICT r1 #5)."""
-    from mitsuba3_experiments_tpu.models.pallas_mlp import fused_apply_mlp
-
-    sizes = [16, 64, 64, 3]
-    params = init_mlp(jax.random.PRNGKey(4), sizes)
-    x = jax.random.normal(jax.random.PRNGKey(5), (257, 16))
-
-    def loss_ref(p):
-        return jnp.sum(jnp.sin(apply_mlp(p, x).astype(jnp.float32)))
-
-    def loss_fused(p):
-        return jnp.sum(jnp.sin(fused_apply_mlp(p, x, "leaky_relu", 128, True)))
-
-    try:
-        v2, g2 = jax.value_and_grad(loss_fused)(params)
-    except Exception as e:
-        pytest.skip(f"pallas interpret unavailable: {e}")
-    v1, g1 = jax.value_and_grad(loss_ref)(params)
-    np.testing.assert_allclose(float(v2), float(v1), rtol=1e-5)
-    for l1, l2 in zip(g1, g2):
-        np.testing.assert_allclose(
-            np.asarray(l2["w"]), np.asarray(l1["w"]), rtol=1e-4, atol=1e-6
-        )
-        np.testing.assert_allclose(
-            np.asarray(l2["b"]), np.asarray(l1["b"]), rtol=1e-4, atol=1e-6
-        )
-
-
-def test_nerad_field_fused_matches_unfused():
-    from mitsuba3_experiments_tpu.models.nerad import (
-        FieldConfig,
-        field_eval,
-        init_field,
-    )
-
-    cfg = FieldConfig()
-    cfg_f = dataclasses.replace(cfg, fused=True, fused_tile=128)
-    params = init_field(jax.random.PRNGKey(6), cfg)
-    p = jax.random.uniform(jax.random.PRNGKey(7), (333, 3))
-    wi = jax.random.normal(jax.random.PRNGKey(8), (333, 3))
-    wi = wi / jnp.linalg.norm(wi, axis=-1, keepdims=True)
-    ref = np.asarray(field_eval(params, cfg, p, wi))
-    try:
-        got = np.asarray(field_eval(params, cfg_f, p, wi))
-    except Exception as e:
-        pytest.skip(f"pallas interpret unavailable: {e}")
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)

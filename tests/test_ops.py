@@ -20,15 +20,6 @@ def test_prefix_sum(rng_np):
     assert ex[0] == 0
 
 
-def test_prefix_sum_pallas_interpret(rng_np):
-    # Pallas blocked scan in interpret mode (CPU-exact semantics)
-    x = jnp.asarray(rng_np.normal(size=5000).astype(np.float32))
-    got = ops.prefix_sum_pallas(x, block=1024, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got), np.cumsum(np.asarray(x)), rtol=1e-4, atol=1e-4
-    )
-
-
 def test_scatter_reduce_builtin(rng_np):
     v = jnp.asarray(rng_np.normal(size=100).astype(np.float32))
     idx = jnp.asarray(rng_np.integers(0, 10, size=100))

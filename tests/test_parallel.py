@@ -122,7 +122,7 @@ def test_persistent_sharded_matches_single_device(box):
 
 
 def test_sharded_replay_grad_matches_single_device(box):
-    """Multi-chip record+replay fwd+bwd == single-device replay grads."""
+    """Multi-device record+replay fwd+bwd == single-device replay grads."""
     from mitsuba3_experiments_tpu.integrators.replay import (
         replay_render_grad,
     )

@@ -55,8 +55,8 @@ def test_pipelined_engine_stays_busy(box):
     less.  Count live-engine iterations via the stepper by instrumenting
     one round on a mid-frame state — the pipelined machine must beat the
     single-path machine's live share on the same workload."""
-    # (Statistical smoke: full idle-share accounting runs on chip via
-    # scripts/roofline_probe.py; here just assert both renderers complete
+    # (Statistical smoke: idle-share accounting belongs to a device trace;
+    # here just assert both renderers complete
     # a full frame with identical images at a lane count that forces many
     # refills, which exercises every scheduler path.)
     a = np.asarray(render_persistent(

@@ -272,7 +272,7 @@ def test_gaussian_filter_partition():
 
 def test_chunked_render_identical():
     """Chunked launches must produce the same image as one launch (global
-    lane indexing; compile-time workaround for the TPU remote compiler)."""
+    lane indexing; chunks bound per-launch memory)."""
     scene, _ = load_dict(cornell_box(res=24, spp=1))
     integ = PathIntegrator(max_depth=3, rr_depth=2)
     full = np.asarray(render(scene, integ, spp=2, seed=4))
